@@ -14,8 +14,6 @@ if "host_platform_device_count" not in flags:
 
 import jax
 
-jax.config.update("jax_platforms", os.environ.get("FOS_TPU_EXAMPLE_PLATFORM", "cpu"))
-
 import time
 
 import numpy as np

@@ -4,12 +4,6 @@ SOCP form via factor model S = F F' + diag(d): minimize
 gamma*(t) - mu'w with ||(F'w, sqrt(d)*w)||^2 <= t (rotated SOC epigraph).
 """
 
-import os
-
-import jax
-
-jax.config.update("jax_platforms", os.environ.get("FOS_TPU_EXAMPLE_PLATFORM", "cpu"))
-
 import numpy as np
 
 from fos_tpu import DR, GAPA, solve

@@ -7,12 +7,6 @@ SLSQP.  This is the reference's Convex.jl workflow
 (/root/reference/README.md:9-17) running natively.
 """
 
-import os
-
-import jax
-
-jax.config.update("jax_platforms", os.environ.get("FOS_TPU_EXAMPLE_PLATFORM", "cpu"))
-
 import numpy as np
 
 from fos_tpu import AndersonWrapper, DR, Problem, Variable, minimize, sum_squares

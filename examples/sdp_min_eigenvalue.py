@@ -5,11 +5,7 @@
 for indefinite C.
 """
 
-import os
-
 import jax
-
-jax.config.update("jax_platforms", os.environ.get("FOS_TPU_EXAMPLE_PLATFORM", "cpu"))
 
 import numpy as np
 import jax.numpy as jnp

@@ -1,13 +1,13 @@
 """Sparse banded LP through the blocked-ELL fast path.
 
 A block-banded LP too big to densify comfortably still solves through the
-Pallas blocked-ELL SpMV (linalg/sparse_ell.py): scipy.sparse input flows
+tile operators (linalg/sparse_ell.py): scipy.sparse input flows
 through the public API, the build layer picks the tile format by measured
 occupancy profitability, and the solution is validated against the
 constructed primal-dual certificate.
 
-Run: python examples/sparse_banded.py  (CPU-safe; kernel runs in interpret
-mode off-TPU)
+Run: python examples/sparse_banded.py  (runs on the default backend; the
+demo is shrunk on the CPU)
 """
 
 
@@ -24,7 +24,7 @@ def main(m=None, half_band=40, seed=3):
     import jax
 
     if m is None:
-        # interpret-mode Pallas (off-TPU) is slow: shrink the demo there
+        # the CPU backend is slow at the full size: shrink the demo there
         m = 4096 if jax.default_backend() != "cpu" else 1024
     rng = np.random.default_rng(seed)
     offs = list(range(-half_band, half_band + 1))

@@ -15,12 +15,6 @@ and through raw ProximalOperators Feasibility), this builds the constraint
 matrices by hand and solves them through the conic HSDE path.
 """
 
-import os
-
-import jax
-
-jax.config.update("jax_platforms", os.environ.get("FOS_TPU_EXAMPLE_PLATFORM", "cpu"))
-
 import numpy as np
 
 from fos_tpu import DR, solve

@@ -1,4 +1,4 @@
-"""fos_tpu — a TPU-native first-order conic solver framework.
+"""fos_tpu — a first-order conic solver framework for accelerators.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 ``mfalt/FirstOrderSolvers.jl`` (reference at /root/reference):

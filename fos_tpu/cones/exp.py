@@ -36,9 +36,27 @@ _BISECTION_ITERS = 96
 _NEWTON_ITERS = 8
 
 
+def _ab(rho, r, s):
+    """``a = (rho-1)*r + s`` and ``b = rho*s - r``, written through their
+    roots ``1 - s/r`` and ``r/s`` (the bracket ends in
+    :func:`_hard_case_root`) where those are finite.  At a bracket end the
+    factored form is exactly 0; the expanded form leaves a rounding residue
+    whose sign depends on how the compiler fuses the multiply-add, and a
+    wrong sign there sends the bracket search far from the root (seen for
+    r=0.0105, s=-0.787, t=0.24: rho ~1e19 on the CPU, and z = 3e53 from
+    a vector of this kind on the GPU)."""
+    c1 = 1.0 - s / jnp.where(r != 0, r, 1.0)
+    c2 = r / jnp.where(s != 0, s, 1.0)
+    a = jnp.where((r != 0) & jnp.isfinite(c1), r * (rho - c1),
+                  (rho - 1.0) * r + s)
+    b = jnp.where((s != 0) & jnp.isfinite(c2), s * (rho - c2), rho * s - r)
+    return a, b
+
+
 def _h(rho, r, s, t):
     quad = rho * (rho - 1.0) + 1.0
-    return ((rho - 1.0) * r + s) * jnp.exp(rho) + (rho * s - r) * jnp.exp(-rho) - quad * t
+    a, b = _ab(rho, r, s)
+    return a * jnp.exp(rho) + b * jnp.exp(-rho) - quad * t
 
 
 def _h_sign(rho, r, s, t):
@@ -53,8 +71,7 @@ def _h_sign(rho, r, s, t):
     e1 = jnp.exp(-jnp.abs(rho))
     e2 = e1 * e1
     quad = rho * (rho - 1.0) + 1.0
-    a = (rho - 1.0) * r + s
-    b = rho * s - r
+    a, b = _ab(rho, r, s)
     # group as quad * (t * e1): left-to-right (quad*t)*e1 overflows to
     # inf before the underflowed e1=0 multiplies in, making inf*0 = NaN
     # (seen at rho=1e30-scale brackets with |t| ~ 1e30)
@@ -179,16 +196,16 @@ def project_exp_single(v):
     th = jnp.where(hard, t, -1.0)
     rho = _hard_case_root(rh, sh, th)
     quad = rho * (rho - 1.0) + 1.0
-    x2 = jnp.maximum(((rho - 1.0) * rh + sh) / quad, 0.0)
-    # z = x2 * e^rho overflows in the degenerate large-rho regime (e.g.
-    # r -> 0+, s < 0 puts the root at rho ~ -s/r); there use the multiplier
-    # stationarity z = t + mu with mu = (r - rho*s) e^(-rho) / quad, whose
-    # e^(-rho) underflows to the correct limit instead of overflowing.
-    log_max = jnp.asarray(0.98 * jnp.log(jnp.finfo(v.dtype).max), v.dtype)
-    rho_z = jnp.minimum(rho, log_max)
-    mu = (rh - rho * sh) * jnp.exp(-jnp.abs(rho)) / quad
-    z_hard = jnp.where(rho > log_max, jnp.maximum(th + mu, 0.0),
-                       x2 * jnp.exp(rho_z))
+    a, b = _ab(rho, rh, sh)
+    x2 = jnp.maximum(a / quad, 0.0)
+    # z from whichever of its two equal forms does not amplify: for rho > 0
+    # the multiplier stationarity z = t + mu, mu = (r - rho*s) e^(-rho) /
+    # quad (x2 * e^rho would multiply x2's rounding error by e^rho and
+    # overflows in the degenerate large-rho regime, e.g. r -> 0+, s < 0
+    # puts the root at rho ~ -s/r); for rho <= 0, z = x2 * e^rho.
+    mu = -b * jnp.exp(-jnp.abs(rho)) / quad
+    z_hard = jnp.where(rho > 0, jnp.maximum(th + mu, 0.0),
+                       x2 * jnp.exp(jnp.minimum(rho, 0.0)))
     p_hard = jnp.stack([rho * x2, x2, z_hard])
 
     p_special = jnp.stack([r, jnp.zeros_like(s), jnp.maximum(t, 0.0)])

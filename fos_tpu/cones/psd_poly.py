@@ -1,7 +1,7 @@
 """Factorization-free PSD projection via polynomial filtering.
 
 ``eigh`` is the pacing kernel for SDP cone projections (SURVEY.md §7 "hard
-parts") and maps poorly to the MXU.  Following the idea of composite
+parts"): it is a sequential factorization.  Following the idea of composite
 polynomial filtering (see PAPERS.md: "Factorization-free Orthogonal
 Projection onto the Positive Semidefinite Cone with Composite Polynomial
 Filtering"), the projection
@@ -11,12 +11,13 @@ Filtering"), the projection
 is computed with a matrix-polynomial approximation of ``sign``: scale X so
 its spectrum lies in [-1, 1], run a few accelerated (quintic) Newton-Schulz
 iterations followed by cubic polishing — every operation is a batched
-matmul, i.e. MXU-native and fully vmappable over PSD blocks.
+matmul, i.e. dense-matmul work that vmaps over PSD blocks.
 
-Accuracy: eigenvalues with |lambda| >= ~1e-3 * ||X||_2 are classified
-essentially exactly; eigenvalues below that threshold contribute at most
-their own magnitude to the projection error.  This is an f32 fast path for
-large/batched SDP blocks; ``eigh`` remains the default.
+Accuracy: the tuned schedule classifies eigenvalues with |lambda| >= ~1e-4
+* ||X||_2 essentially exactly; eigenvalues below that threshold contribute
+at most their own magnitude to the projection error.  Which method
+``psd_method="auto"`` picks is decided in
+:func:`fos_tpu.cones.project.resolve_psd_method`.
 """
 
 from __future__ import annotations
@@ -54,8 +55,8 @@ _SCHEDULE_CUBICS = 2
 
 
 def _mm(a, b):
-    # MXU matmuls truncate inputs to bf16 by default; the sign iteration
-    # needs full f32 (measured: default precision costs ~1e-2 relative error)
+    # full f32: without a precision an f32 matmul on the GPU may run in
+    # TF32 (about three decimal digits), and the sign iteration needs f32
     return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
@@ -91,8 +92,7 @@ def _spectral_bound(X, iters: int = 8):
     fro = jnp.linalg.norm(X, axis=(-2, -1), keepdims=True)
     # float(): np.float64 is a *strong* scalar — under jax_enable_x64 it
     # silently promotes the whole power iteration (and everything downstream
-    # in psd_project_poly) to f64, which emulated on the MXU crashed the TPU
-    # worker on batched SDP solves (VERDICT r3 weak item 1).
+    # in psd_project_poly) to f64.
     v = jnp.ones((*X.shape[:-1], 1), X.dtype) / float(np.sqrt(d))
 
     def body(v, _):

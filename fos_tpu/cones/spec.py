@@ -9,7 +9,7 @@ Unlike the reference — which stores prox *objects* and loops over blocks at
 run time (src/cones.jl:89-94) — the spec here is pure data.  It is "compiled"
 once by :mod:`fos_tpu.cones.project` into a single fused projection pass
 (masked clip + segment-reduced SOC + batched-eigh PSD + vmapped exp-cone),
-which is the TPU-native replacement for the reference's per-block Julia loop
+which replaces the reference's per-block Julia loop
 (the reference itself carries a ``#TODO Paralell implementation`` note there).
 """
 

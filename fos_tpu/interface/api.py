@@ -54,15 +54,16 @@ def solve(A=None, b=None, c=None, K1: ConeSpec = None, K2: ConeSpec = None,
           warm_start: Solution = None, **options) -> Solution:
     """Solve ``min c'x s.t. Ax + s = b, s in K1, x in K2`` via the HSDE.
 
-    ``dtype`` casts the problem data (e.g. ``jnp.float32`` for the TPU fast
+    ``dtype`` casts the problem data (e.g. ``jnp.float32`` for the f32
     path; defaults to the dtype of the inputs / x64 setting).
 
     Sparse ``A`` (scipy.sparse / BCOO) options: ``densify`` (True /
-    False / "auto" — auto densifies on accelerators when the dense form
-    fits; explicit tile formats and operator inputs are never densified)
-    and ``sparse_format`` ("auto" | "bcoo" | "bell" | "band" — "bell" is
-    the blocked-ELL Pallas tile kernel, "band" the contiguous-window
-    variant for banded patterns; both f32-only).
+    False / "auto" — auto densifies on an accelerator when the dense form
+    fits a quarter of its memory and no tile format applies; explicit tile
+    formats and operator inputs are never densified) and ``sparse_format``
+    ("auto" | "bcoo" | "bell" | "band" — "bell" is the blocked-ELL tile
+    operator, "band" the contiguous-window variant for banded patterns;
+    both f32-only; see ``HSDEForm.build`` for the auto rule).
 
     ``warm_start`` seeds the iteration from a previous :class:`Solution` of
     the same/nearby problem (parametric sweeps): sugar for
@@ -100,7 +101,6 @@ def solve(A=None, b=None, c=None, K1: ConeSpec = None, K2: ConeSpec = None,
         direct=getattr(alg, "direct", False),
         cg_max_iters=int(opts.pop("cg_max_iters", 1000)),
         cg_tol_floor=opts.pop("cg_tol_floor", None),
-        pallas=bool(opts.pop("pallas", False)),
         psd_method=str(opts.pop("psd_method", "auto")),
         cg_variant=str(opts.pop("cg_variant", "standard")),
         cg_unroll=int(opts.pop("cg_unroll", 2)),
@@ -128,12 +128,12 @@ def _refine_solution(raw_inputs, problem, alg, form, res, refine, refine_kwargs,
     """Post-solve f64 refinement sweep: continue the iteration at f64 from
     the f32 solution's raw iterate.
 
-    The f32 TPU path bottoms out at the f32 storage floor (~6e-8 relative on
+    The f32 path bottoms out at the f32 storage floor (~6e-8 relative on
     the iterate even with compensated reductions); a warm-started f64 sweep
-    — emulated-f64 on TPU, native on CPU — removes it in a few hundred
-    iterations because the start point is already residual ~1e-5.  This is
-    the TPU-native answer to the reference's all-f64 operating points
-    (testDRandGAPA.jl:44-49, eps down to 1e-9).
+    removes it in a few hundred iterations because the start point is
+    already residual ~1e-5.  This is the f32 path's answer to the
+    reference's all-f64 operating points (testDRandGAPA.jl:44-49, eps down
+    to 1e-9).
 
     ``form64`` is rebuilt with the SAME ``equilibrate`` setting as the f32
     solve: the warm-start iterate ``res.state.x`` lives in the Ruiz-scaled

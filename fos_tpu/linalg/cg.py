@@ -1,6 +1,6 @@
 """Conjugate gradients as a compiled ``lax.while_loop``.
 
-TPU-native counterpart of the reference's preallocated, warm-started CG
+Counterpart of the reference's preallocated, warm-started CG
 (/root/reference/src/utilities/conjugategradients.jl:31-55, Golub & Van Loan
 form).  Differences by design:
 
@@ -96,9 +96,9 @@ def conjugate_gradient(
     warm-started f32 CG around 1e-4 residuals.
 
     ``unroll`` performs that many CG iterations per while-loop step (the
-    tolerance is checked once per group): on TPU every loop step pays a
-    fixed scalar-core overhead, which dominates when the warm-started CG
-    needs only a couple of iterations.  The extra sub-iterations past
+    tolerance is checked once per group): every loop step pays a fixed
+    device-loop overhead, which dominates when the warm-started CG needs
+    only a couple of iterations.  The extra sub-iterations past
     convergence are guarded (zero steps), so the result is unchanged up to
     a few sub-tolerance iterations.
     """

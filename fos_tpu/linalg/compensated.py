@@ -1,7 +1,6 @@
-"""Compensated (float-float) reductions for the f32 TPU path.
+"""Compensated (float-float) reductions for the f32 path.
 
-TPU compute is f32 (f64 is emulated ~40x slower, PERF.md); plain f32 dot
-products and norms carry O(n*eps) ~ 1e-4 relative error at the solver's
+On the f32 path plain f32 dot products and norms carry O(n*eps) ~ 1e-4 relative error at the solver's
 vector lengths, which caps the achievable operating point near eps=1e-5.
 These routines recover ~f64-quality reductions using only f32 arithmetic:
 
@@ -17,7 +16,7 @@ being the accuracy bottleneck; the f32 *storage* of the iterate (eps ~
 (interface/api.py ``refine``) then removes.
 
 No reference counterpart (the reference is f64 throughout); this is the
-TPU-native answer to its reliance on f64 BLAS (VERDICT.md round 1, item 1).
+f32 path's answer to its reliance on f64 BLAS.
 
 These transforms rely on IEEE-exact add/sub/mul.  XLA does not apply
 value-changing float rewrites by default, and the unit tests would catch a

@@ -9,7 +9,7 @@ The HSDE matrix (HSDEAffine.jl:2-65 in the reference)
 is skew-symmetric (Q' = -Q); one application costs one ``A`` matvec, one
 ``A'`` matvec and rank-1 ``b``/``c`` terms.
 
-TPU-native redesign of the affine projection: instead of running CG on the
+Redesign of the affine projection: instead of running CG on the
 reference's 2l x 2l symmetric-indefinite system ``[I Q'; Q -I]``
 (HSDEAffine.jl:105-126), project onto ``{(u,v): Qu = v}`` by solving the
 l x l SPD system
@@ -18,8 +18,8 @@ l x l SPD system
 
 and setting ``v = Q u``.  Same two-projections-per-iteration semantics,
 half the CG state, an SPD operator (plain CG is actually guaranteed to
-converge, unlike on the indefinite form), and the matvec is two fused Q
-applications that XLA maps onto the MXU for dense ``A``.
+converge, unlike on the indefinite form), and the matvec is two Q
+applications, each one ``(A @ x, A' @ z)`` pair plus rank-1 terms.
 """
 
 from __future__ import annotations
@@ -29,11 +29,11 @@ import jax.numpy as jnp
 
 from jax.experimental import sparse as jsparse
 
-# Dense solver matvecs run at full f32 precision: TPU MXU dots default to
-# bf16 inputs (~1e-2 relative error), which caps the achievable S1-
-# projection accuracy and measurably stalls dual-residual convergence on
-# SDPs (round 4; see PERF.md).  Matvecs are HBM-bound, so the precision
-# upgrade costs ~nothing on the wall clock.
+# Dense solver matvecs run at full f32 precision: without a precision, an
+# f32 product on the GPU may run in TF32 (about three decimal digits),
+# which caps the achievable S1-projection accuracy and stalls
+# dual-residual convergence on SDPs.  Matvecs are bound by memory
+# bandwidth, so full precision costs next to nothing on the wall clock.
 PREC = jax.lax.Precision.HIGHEST
 _PREC = PREC  # backward-compat alias
 
@@ -43,7 +43,7 @@ def _dense_mv(A, x):
 
 
 def mv(A, x):
-    """A @ x for dense, BCOO, or PaddedDenseOp A."""
+    """A @ x for dense, BCOO, or operator A (``mv`` protocol)."""
     if hasattr(A, "mv"):
         return A.mv(x)
     if isinstance(A, jsparse.BCOO):
@@ -52,7 +52,7 @@ def mv(A, x):
 
 
 def rmv(A, y):
-    """A' @ y for dense, BCOO, or PaddedDenseOp A."""
+    """A' @ y for dense, BCOO, or operator A (``rmv`` protocol)."""
     if hasattr(A, "rmv"):
         return A.rmv(y)
     if isinstance(A, jsparse.BCOO):
@@ -61,10 +61,8 @@ def rmv(A, y):
 
 
 def mv_pair(A, x1, x2):
-    """(A @ x1, A' @ x2); a single fused HBM pass when A supports it —
-    PaddedDenseOp, and the sparse tile ops (BlockedEllOp / BandedBlockOp /
-    RowShardedOp), whose fused pair kernels stream the A tile table ONCE
-    for both products (2.3x measured, PERF.md round 4)."""
+    """(A @ x1, A' @ x2); from the A tile table alone when A supports it
+    (the sparse tile ops BlockedEllOp / BandedBlockOp / RowShardedOp)."""
     if hasattr(A, "mv_pair"):
         return A.mv_pair(x1, x2)
     if hasattr(A, "mv"):  # operator without a fused pair
@@ -93,8 +91,6 @@ def q_mul(A, b, c, z):
 
 def q_dense(A, b, c):
     """Materialize Q (for direct mode and test oracles)."""
-    if hasattr(A, "A_pad"):
-        A = A.A_pad[: A.m, : A.n]
     if isinstance(A, jsparse.BCOO) or (hasattr(A, "todense")
                                        and not isinstance(A, jnp.ndarray)):
         A = A.todense()

@@ -1,23 +1,22 @@
-"""Blocked-ELL sparse matrix operator with a Pallas TPU SpMV kernel.
+"""Tiled sparse matrix operators: blocked-ELL and banded-block layouts.
 
 The reference treats sparse A as a first-class citizen via Julia's
 ``SparseMatrixCSC`` matvecs (HSDEAffine.jl:41-59, tested at 0.001 density in
-test/HSDEAffine.jl:84-90).  On TPU, unstructured gather/scatter SpMV (what
-BCOO lowers to) is ~12.5x slower than a dense matvec even at 5% density
-(PERF.md), and auto-densifying dies at the HBM cliff for very large A
-(VERDICT round 1, missing item 2).  This module is the TPU-native middle
-path:
+test/HSDEAffine.jl:84-90).  Densifying a very large A runs out of device
+memory, and an unstructured gather/scatter SpMV (what BCOO lowers to)
+reads the matrix element by element.  This module is the middle path:
 
-* A is tiled into (bm, bn) = (128, 128) MXU-native dense tiles; only tiles
-  containing nonzeros are stored, in ELL layout — ``blocks[i, k]`` is the
-  k-th occupied tile of block-row i and ``cols[i, k]`` its block-column.
-* ``mv`` runs one Pallas kernel over the (block-rows, kmax) grid: the
-  scalar-prefetched ``cols`` table drives the x-block index map, so each
-  grid step streams exactly one stored tile plus the x slice it needs —
-  HBM traffic is proportional to the number of OCCUPIED tiles, not to the
-  dense size.
+* A is tiled into (bm, bn) = (128, 128) dense tiles; only tiles containing
+  nonzeros are stored, in ELL layout — ``blocks[i, k]`` is the k-th
+  occupied tile of block-row i and ``cols[i, k]`` its block-column.
+* ``mv`` gathers the x blocks each stored tile needs and runs one batched
+  tile-times-vector contraction, so the bytes read are proportional to the
+  number of OCCUPIED tiles, not to the dense size.
 * ``rmv`` uses a second ELL built from A' (sparse tiles of A and A' differ;
   storing both costs 2x occupied tiles, still far below dense).
+* ``mv_pair`` returns ``(A @ x, A' @ z)`` from the A table alone — the shape
+  the HSDE ``q_mul`` consumes.  For the banded layout on the GPU it is one
+  Pallas kernel that reads each tile once for both products.
 
 Cost model: speed and storage are ``occupancy``x dense, where occupancy is
 the fraction of 128x128 tiles containing any nonzero.  Block-structured /
@@ -37,373 +36,144 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+
+# f32 contractions at full f32 precision: on the GPU an f32 einsum may
+# otherwise run in TF32 (about three decimal digits)
+_HI = jax.lax.Precision.HIGHEST
 
 
-def _bell_mv_kernel(cols_ref, blocks_ref, x_ref, y_ref, *, mt, kt):
-    """One grid step: y[i*mt+r] (+)= sum_kk blocks[i*mt+r, kb*kt+kk] @ x[cols[...]].
+def _bell_mv(cols, blocks, xb):
+    """y[i] = sum_k blocks[i, k] @ xb[cols[i, k]].
 
-    Grid is (nrb // mt, kmax // kt) with the k-blocks fastest.  Each step
-    streams ``mt x kt`` stored tiles in one pipelined DMA (a single 64 KB
-    tile per step measured only ~35 GB/s — the ~2 us fixed grid-step cost
-    dominates; batching tiles amortizes it along BOTH the k axis and the
-    row-block axis, which matters for banded problems where kmax is small).
-    x lives whole in VMEM — it is O(n) next to the tile data — with x rows
-    picked by dynamic slices driven by the scalar-prefetched ``cols`` table
-    (Mosaic rejects sub-(8, 128) blocks, so row-blocking x is not an
-    option; y's (mt, bm) block is legal because the builder pads nrb so
-    mt is 8 or the full row count).  Padding tiles are stored as zeros —
-    correctness does not depend on masking them.
-    """
+    cols: (nrb, K) int32; blocks: (nrb, K, bm, bn); xb: (ncb, bn) ->
+    (nrb, bm).  Padding slots hold zero tiles, so whatever block they
+    index contributes nothing."""
+    return jnp.einsum("ikrc,ikc->ir", blocks, xb[cols], precision=_HI)
+
+
+def _tile_rows_sum(cols, p, nrows):
+    """Sum per-tile rows ``p[i, k]`` (nrb, K, bn) into block row
+    ``cols[i, k]`` of an (nrows, bn) result."""
+    bn = p.shape[-1]
+    return jax.ops.segment_sum(p.reshape(-1, bn), cols.reshape(-1),
+                               num_segments=nrows)
+
+
+def _bell_mv_pair(cols, blocks, xb, zb):
+    """(A @ x, A' @ z) from the A table: y1 as :func:`_bell_mv`; each tile
+    contributes ``blocks[i, k]' z[i]`` to block row ``cols[i, k]`` of y2.
+    zb: (nrb, bm) -> (y1: (nrb, bm), y2: (xb.shape[0], bn))."""
+    y1 = _bell_mv(cols, blocks, xb)
+    p = jnp.einsum("ikrc,ir->ikc", blocks, zb, precision=_HI)
+    return y1, _tile_rows_sum(cols, p, xb.shape[0])
+
+
+def _band_cols(cs, S):
+    """Block-column of each window slot: cs[i] + s for s < S."""
+    return cs[:, None] + jnp.arange(S, dtype=cs.dtype)[None, :]
+
+
+def _band_mv(cs, blocks, xb):
+    """cs: (nrb,) int32 first block-column of each row block's window;
+    blocks: (nrb, S, bm, bn); xb: (ncb + S, bn) padded so every window
+    stays in range -> y: (nrb, bm)."""
+    return _bell_mv(_band_cols(cs, blocks.shape[1]), blocks, xb)
+
+
+# -- banded pair kernel (Pallas, Triton route) ----------------------------
+#
+# One program per (row block i, half h of its bm rows).  It walks the S
+# tiles of its window, loading each (bm/2, bn) half-tile once and using it
+# twice: the row sums against x give its half of y1 directly; the column
+# sums against z give that half-tile's share of A'z, written to a partials
+# array (nrb, 2, S, bn) that XLA then sums into y2.  No program writes
+# where another does, so there are no atomics and no cross-block order.
+# Products are elementwise multiplies plus reductions in f32 (no matrix
+# unit, so no TF32).
+
+
+def _band_pair_kernel(cs_ref, a_ref, x_ref, z_ref, y1_ref, p_ref,
+                      *, S, bm, bn, hm):
     i = pl.program_id(0)
-    kb = pl.program_id(1)
-    # Gather the mt*kt x-rows, then ONE dot_general batched over both tile
-    # axes and contracting bn: sum_k blocks[r, k] @ xs[r, k].  (A per-tile
-    # dot chain `acc + dot(...)` fails Mosaic with "only constant
-    # accumulators supported".)  MXU truncates f32 inputs to bf16 by
-    # default: precision=HIGHEST is required for f32-accurate products
-    # (PERF.md "MXU default input precision").
-    xs = jnp.stack([x_ref[cols_ref[i * mt + r, kb * kt + kk], :]
-                    for r in range(mt) for kk in range(kt)])  # (mt*kt, bn)
-    a = blocks_ref[...]           # (mt, kt, bm, bn) tiles
-    bm, bn = a.shape[2], a.shape[3]
-    # ONE single-batch-axis dot_general (Mosaic's tpu.matmul supports at
-    # most 1 batch dim): batch over the flattened (row-block, tile) axis
-    parts = jax.lax.dot_general(
-        a.reshape(mt * kt, bm, bn), xs, (((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )                             # (mt*kt, bm)
-    contrib = jnp.sum(parts.reshape(mt, kt, bm), axis=1)  # (mt, bm)
+    h = pl.program_id(1)
+    c0 = cs_ref[i]
+    row0 = i * bm + h * hm
+    z = z_ref[pl.ds(row0, hm)]                              # (hm,)
 
-    @pl.when(kb == 0)
-    def _():
-        y_ref[...] = contrib
+    def body(s, acc):
+        a = a_ref[pl.ds((i * S + s) * bm + h * hm, hm), :]  # (hm, bn)
+        x = x_ref[pl.ds((c0 + s) * bn, bn)]                 # (bn,)
+        p_ref[pl.ds(((i * 2 + h) * S + s) * bn, bn)] = jnp.sum(
+            a * z[:, None], axis=0)
+        return acc + jnp.sum(a * x[None, :], axis=1)
 
-    @pl.when(kb != 0)
-    def _():
-        y_ref[...] += contrib
+    y1_ref[pl.ds(row0, hm)] = jax.lax.fori_loop(
+        jnp.int32(0), jnp.int32(S), body, jnp.zeros((hm,), jnp.float32))
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _bell_mv(cols, blocks, xb, *, interpret=False):
-    """cols: (nrb, kmax) int32; blocks: (nrb, kmax, bm, bn) f32 with nrb a
-    multiple of the row-block batch and kmax a multiple of the k-block
-    (builder guarantees both); xb: (ncb, bn) f32 -> y: (nrb, bm) f32."""
-    nrb, kmax, bm, bn = blocks.shape
-    ncb = xb.shape[0]
-    kt = _k_block(kmax)
-    mt = _m_block(nrb)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nrb // mt, kmax // kt),
-        in_specs=[
-            # i*0 (not literal 0): under jax_enable_x64 a literal promotes
-            # to i64 and Mosaic fails to legalize the index-map function —
-            # same reason x gets an explicit full-shape block + map instead
-            # of relying on pallas-synthesized (i64-constant) maps
-            pl.BlockSpec((mt, kt, bm, bn),
-                         lambda i, k, cols: (i, k, i * 0, i * 0)),
-            pl.BlockSpec((ncb, bn), lambda i, k, cols: (i * 0, i * 0)),
-        ],
-        out_specs=pl.BlockSpec((mt, bm), lambda i, k, cols: (i, i * 0)),
-    )
-    return pl.pallas_call(
-        functools.partial(_bell_mv_kernel, mt=mt, kt=kt),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((nrb, bm), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nrb * kmax * bm * bn,
-            bytes_accessed=nrb * kmax * bm * bn * 4 + (nrb * bm + ncb * bn) * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(cols, blocks, xb)
+def _band_mv_pair_triton(cs, blocks, xb, zb, *, interpret=False):
+    """Kernel form of :func:`_band_mv_pair_xla` (same arguments and
+    results).  ``interpret=True`` runs it on the CPU for tests."""
+    from jax.experimental.pallas import triton as plgpu
 
-
-def _band_mv_kernel(cs_ref, blocks_ref, x_ref, y_ref, *, mt, st):
-    """Banded variant: row-block i's occupied tiles live at contiguous
-    block-columns [cs[i], cs[i] + S), so the per-x-row gather of the ELL
-    kernel (mt*kt separate (1, bn) dynamic slices) becomes mt CONTIGUOUS
-    (st, bn) slices.  Wide bands stream in ``st``-tile slabs along a
-    second grid axis with y accumulation — one (mt, S) block at S=16
-    needs 8.4 MB/step and VMEM-OOMs at the 16 MB scoped limit (found on
-    hardware, round 4)."""
-    i = pl.program_id(0)
-    kb = pl.program_id(1)
-    xs = jnp.concatenate(
-        [x_ref[pl.ds(cs_ref[i * mt + r] + kb * st, st), :]
-         for r in range(mt)])
-    a = blocks_ref[...]                      # (mt, st, bm, bn)
-    bm, bn = a.shape[2], a.shape[3]
-    parts = jax.lax.dot_general(
-        a.reshape(mt * st, bm, bn), xs, (((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )                                        # (mt*st, bm)
-    contrib = jnp.sum(parts.reshape(mt, st, bm), axis=1)
-
-    @pl.when(kb == 0)
-    def _():
-        y_ref[...] = contrib
-
-    @pl.when(kb != 0)
-    def _():
-        y_ref[...] += contrib
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _band_mv(cs, blocks, xb, *, interpret=False):
-    """cs: (nrb,) int32 first occupied block-column per row block;
-    blocks: (nrb, S, bm, bn) f32; xb: (ncb + S, bn) f32 padded so the
-    trailing slice stays in range -> y: (nrb, bm) f32."""
     nrb, S, bm, bn = blocks.shape
-    ncb_pad = xb.shape[0]
-    mt = _m_block(nrb)
-    st = _k_block(S)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nrb // mt, S // st),
-        in_specs=[
-            pl.BlockSpec((mt, st, bm, bn),
-                         lambda i, k, cs: (i, k, i * 0, i * 0)),
-            pl.BlockSpec((ncb_pad, bn), lambda i, k, cs: (i * 0, i * 0)),
-        ],
-        out_specs=pl.BlockSpec((mt, bm), lambda i, k, cs: (i, i * 0)),
-    )
-    return pl.pallas_call(
-        functools.partial(_band_mv_kernel, mt=mt, st=st),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((nrb, bm), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nrb * S * bm * bn,
-            bytes_accessed=nrb * S * bm * bn * 4 + (nrb * bm + ncb_pad * bn) * 4,
-            transcendentals=0,
-        ),
+    hm = bm // 2
+    y1, parts = pl.pallas_call(
+        functools.partial(_band_pair_kernel, S=S, bm=bm, bn=bn, hm=hm),
+        grid=(nrb, 2),
+        out_shape=[jax.ShapeDtypeStruct((nrb * bm,), jnp.float32),
+                   jax.ShapeDtypeStruct((nrb * 2 * S * bn,), jnp.float32)],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
         interpret=interpret,
-    )(cs, blocks, xb)
+        name="band_mv_pair",
+    )(cs.astype(jnp.int32), blocks.reshape(nrb * S * bm, bn),
+      xb.reshape(-1), zb.reshape(-1))
+    p = parts.reshape(nrb, 2, S, bn).sum(axis=1)
+    return (y1.reshape(nrb, bm),
+            _tile_rows_sum(_band_cols(cs, S), p, xb.shape[0]))
 
 
-def _band_mv_pair_kernel(cs_ref, blocks_ref, x_ref, z_ref, y1_ref, y2_ref,
-                         *, mt, st):
-    """Fused pair: ONE stream of the A tile table produces BOTH ``A @ x``
-    and ``A' @ z``.  The HSDE ``q_mul`` needs exactly this pair per
-    application (hsde_ops.q_mul), and tile-table reads are the entire HBM
-    cost of the sparse solve — the fused kernel halves them (and removes
-    the need to even store the A' table for the solve path).
-
-    Forward: same one batched dot as :func:`_band_mv_kernel` (y1
-    accumulates over the st-slab grid axis, see there for the VMEM
-    budget).  Transpose: y2[cs_r + kb*st + s] += a[r, s]' @ z_r, computed
-    as the row-vector product z_r' @ a[r, s] (natural tile layout, no
-    transposes) with z repeated st times along the batch axis;
-    accumulated into the VMEM-resident y2 output block (constant index
-    map -> lives in VMEM across all grid steps, flushed once at the
-    end)."""
-    i = pl.program_id(0)
-    kb = pl.program_id(1)
-    a = blocks_ref[...]                      # (mt, st, bm, bn)
-    bm, bn = a.shape[2], a.shape[3]
-    af = a.reshape(mt * st, bm, bn)
-
-    xs = jnp.concatenate(
-        [x_ref[pl.ds(cs_ref[i * mt + r] + kb * st, st), :]
-         for r in range(mt)])
-    parts = jax.lax.dot_general(
-        af, xs, (((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )                                        # (mt*st, bm)
-    contrib = jnp.sum(parts.reshape(mt, st, bm), axis=1)
-
-    @pl.when(kb == 0)
-    def _():
-        y1_ref[...] = contrib
-
-    @pl.when(kb != 0)
-    def _():
-        y1_ref[...] += contrib
-
-    z = z_ref[...]                           # (mt, bm)
-    zs = jnp.repeat(z, st, axis=0)           # (mt*st, bm), r-major
-    # z_r' @ a[r,s] as [B,1,K] x [B,K,N] -> [B,1,N]: Mosaic's batched-dot
-    # rule needs the lhs contraction on the LAST dim and the rhs
-    # non-contracting dims as a suffix — this row-vector form satisfies
-    # both without transposing the tiles in VMEM
-    pt = jax.lax.dot_general(
-        zs[:, None, :], af, (((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )[:, 0, :]                               # (mt*st, bn) = a[r,s]' z_r
-
-    @pl.when((i == 0) & (kb == 0))
-    def _():
-        y2_ref[...] = jnp.zeros_like(y2_ref)
-
-    for r in range(mt):
-        w = pl.ds(cs_ref[i * mt + r] + kb * st, st)
-        y2_ref[w, :] += pt[r * st:(r + 1) * st]
+def _band_mv_pair_xla(cs, blocks, xb, zb):
+    """cs: (nrb,) int32; blocks: (nrb, S, bm, bn); xb: (ncb + S, bn)
+    padded; zb: (nrb, bm) -> (y1: (nrb, bm) = A x, y2: (ncb + S, bn) =
+    A' z), as two contractions over the same table."""
+    return _bell_mv_pair(_band_cols(cs, blocks.shape[1]), blocks, xb, zb)
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _band_mv_pair(cs, blocks, xb, zb, *, interpret=False):
-    """cs: (nrb,) int32; blocks: (nrb, S, bm, bn); xb: (ncb + S, bn) padded;
-    zb: (nrb, bm) -> (y1: (nrb, bm) = A x, y2: (ncb + S, bn) = A' z)."""
-    nrb, S, bm, bn = blocks.shape
-    ncb_pad = xb.shape[0]
-    mt = _m_block(nrb)
-    st = _k_block(S)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nrb // mt, S // st),
-        in_specs=[
-            pl.BlockSpec((mt, st, bm, bn),
-                         lambda i, k, cs: (i, k, i * 0, i * 0)),
-            pl.BlockSpec((ncb_pad, bn), lambda i, k, cs: (i * 0, i * 0)),
-            pl.BlockSpec((mt, bm), lambda i, k, cs: (i, i * 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((mt, bm), lambda i, k, cs: (i, i * 0)),
-            pl.BlockSpec((ncb_pad, bn), lambda i, k, cs: (i * 0, i * 0)),
-        ],
-    )
-    return pl.pallas_call(
-        functools.partial(_band_mv_pair_kernel, mt=mt, st=st),
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((nrb, bm), jnp.float32),
-                   jax.ShapeDtypeStruct((ncb_pad, bn), jnp.float32)],
-        cost_estimate=pl.CostEstimate(
-            flops=4 * nrb * S * bm * bn,
-            bytes_accessed=nrb * S * bm * bn * 4
-            + (2 * nrb * bm + 2 * ncb_pad * bn) * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(cs, blocks, xb, zb)
+def _is_pow2(v: int) -> bool:
+    return v > 0 and v & (v - 1) == 0
 
 
-def _bell_mv_pair_kernel(cols_ref, blocks_ref, x_ref, z_ref, y1_ref, y2_ref,
-                         *, mt, kt):
-    """Blocked-ELL fused pair (see :func:`_band_mv_pair_kernel`): one
-    stream of the A tile table yields ``A @ x`` (per-tile x gather, as
-    :func:`_bell_mv_kernel`) and ``A' @ z`` (per-tile scatter-accumulate
-    into the VMEM-resident y2 block)."""
-    i = pl.program_id(0)
-    kb = pl.program_id(1)
-    a = blocks_ref[...]                      # (mt, kt, bm, bn)
-    bm, bn = a.shape[2], a.shape[3]
-    af = a.reshape(mt * kt, bm, bn)
-
-    xs = jnp.stack([x_ref[cols_ref[i * mt + r, kb * kt + kk], :]
-                    for r in range(mt) for kk in range(kt)])  # (mt*kt, bn)
-    parts = jax.lax.dot_general(
-        af, xs, (((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )                                        # (mt*kt, bm)
-    contrib = jnp.sum(parts.reshape(mt, kt, bm), axis=1)
-
-    @pl.when(kb == 0)
-    def _():
-        y1_ref[...] = contrib
-
-    @pl.when(kb != 0)
-    def _():
-        y1_ref[...] += contrib
-
-    z = z_ref[...]                           # (mt, bm)
-    zs = jnp.repeat(z, kt, axis=0)           # (mt*kt, bm), r-major
-    pt = jax.lax.dot_general(
-        zs[:, None, :], af, (((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )[:, 0, :]                               # (mt*kt, bn) = a[r,k]' z_r
-
-    @pl.when((i == 0) & (kb == 0))
-    def _():
-        y2_ref[...] = jnp.zeros_like(y2_ref)
-
-    for r in range(mt):
-        for kk in range(kt):
-            w = pl.ds(cols_ref[i * mt + r, kb * kt + kk], 1)
-            y2_ref[w, :] += pt[r * kt + kk][None, :]
+#: the kernel's grid is (row blocks, 2); below this many row blocks it
+#: leaves most of the card idle and the plain form is as fast or faster
+#: (H100 sweep over 16..512 row blocks at S = 3 and 16, PERF.md)
+KERNEL_MIN_ROW_BLOCKS = 64
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _bell_mv_pair(cols, blocks, xb, zb, *, interpret=False):
-    """cols: (nrb, kmax) int32; blocks: (nrb, kmax, bm, bn); xb: (ncb, bn);
-    zb: (nrb, bm) -> (y1: (nrb, bm) = A x, y2: (ncb, bn) = A' z).
-
-    NOTE: zero-padding tile slots alias block-column 0, so the transpose
-    scatter requires padding tiles to be stored as ZEROS (the builders
-    guarantee this; the forward path has the same requirement)."""
-    nrb, kmax, bm, bn = blocks.shape
-    ncb = xb.shape[0]
-    kt = _k_block(kmax)
-    mt = _m_block(nrb)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nrb // mt, kmax // kt),
-        in_specs=[
-            pl.BlockSpec((mt, kt, bm, bn),
-                         lambda i, k, cols: (i, k, i * 0, i * 0)),
-            pl.BlockSpec((ncb, bn), lambda i, k, cols: (i * 0, i * 0)),
-            pl.BlockSpec((mt, bm), lambda i, k, cols: (i, i * 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((mt, bm), lambda i, k, cols: (i, i * 0)),
-            pl.BlockSpec((ncb, bn), lambda i, k, cols: (i * 0, i * 0)),
-        ],
-    )
-    return pl.pallas_call(
-        functools.partial(_bell_mv_pair_kernel, mt=mt, kt=kt),
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((nrb, bm), jnp.float32),
-                   jax.ShapeDtypeStruct((ncb, bn), jnp.float32)],
-        cost_estimate=pl.CostEstimate(
-            flops=4 * nrb * kmax * bm * bn,
-            bytes_accessed=nrb * kmax * bm * bn * 4
-            + (2 * nrb * bm + 2 * ncb * bn) * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(cols, blocks, xb, zb)
+def use_band_pair_kernel(platform: str, blocks_shape, dtype) -> bool:
+    """The banded pair runs as the Pallas kernel on the GPU, for f32 tiles
+    whose halves and rows are power-of-two sized (Triton's block rule) and
+    at least :data:`KERNEL_MIN_ROW_BLOCKS` row blocks; everywhere else it
+    is the plain two-contraction form."""
+    nrb, _, bm, bn = blocks_shape
+    return (platform == "gpu" and jnp.dtype(dtype) == jnp.float32
+            and nrb >= KERNEL_MIN_ROW_BLOCKS
+            and bm >= 2 and _is_pow2(bm) and _is_pow2(bn))
 
 
-def _k_block(kmax: int) -> int:
-    """Tiles streamed per grid step along k: whole k-range when small, else
-    the largest divisor of kmax that is <= 8 (builder pads kmax to keep
-    this >= 4 when kmax > 8)."""
-    if kmax <= 8:
-        return kmax
-    for kt in (8, 7, 6, 5, 4):
-        if kmax % kt == 0:
-            return kt
-    return 1
-
-
-def _m_block(nrb: int) -> int:
-    """Row blocks batched per grid step: 8 when the builder padded nrb to a
-    multiple of 8, else the whole (small) row count.  8 is the smallest
-    Mosaic-legal sub-block height for y's (mt, bm) output block, and at
-    kt*mt >= 8 tiles/step the per-step DMA (>= 2 MB) runs at full HBM
-    bandwidth instead of being grid-step-latency-bound."""
-    return 8 if nrb % 8 == 0 and nrb > 8 else nrb
-
-
-def _pad8(nb: int) -> int:
-    """Block-grid rows padded to a multiple of 8 (the kernel's row-block
-    batch, _m_block) when there are more than 8; small grids stay exact
-    (full-array output block is always Mosaic-legal)."""
-    return ((nb + 7) // 8) * 8 if nb > 8 else nb
+def _band_mv_pair(cs, blocks, xb, zb):
+    if use_band_pair_kernel(jax.default_backend(), blocks.shape,
+                            blocks.dtype):
+        return _band_mv_pair_triton(cs, blocks, xb, zb)
+    return _band_mv_pair_xla(cs, blocks, xb, zb)
 
 
 def _ell_kmax(max_count: int) -> int:
-    """Tile-slot count per block row: at least 1; padded to a multiple of 8
-    past 8 so the kernel streams 8 tiles per grid step (_k_block).  Shared
-    by the numpy and native packers (passed as ``kmax_of``) so the padding
-    policy cannot drift between them."""
-    return _pad8(max(max_count, 1))
+    """Tile-slot count per block row (at least 1).  Shared by the numpy and
+    native packers (passed as ``kmax_of``) so the policy cannot drift
+    between them."""
+    return max(max_count, 1)
 
 
 def _build_ell_arrays(m, n, rows, cols, vals, bm, bn):
@@ -414,7 +184,7 @@ def _build_ell_arrays(m, n, rows, cols, vals, bm, bn):
     the rest is zeroing/touching the tile tables — PERF.md) and falls back
     to the numpy implementation below; both produce bit-identical tables
     (tests/test_native.py)."""
-    nrb = _pad8(math.ceil(m / bm))
+    nrb = math.ceil(m / bm)
     ncb = math.ceil(n / bn)
     from fos_tpu import native
 
@@ -430,8 +200,6 @@ def _build_ell_arrays(m, n, rows, cols, vals, bm, bn):
     # slot index of each occupied tile within its block-row (tiles arrive
     # sorted by (ti, tj) from np.unique)
     counts = np.bincount(uti, minlength=nrb)
-    # kmax padded to a multiple of 8 past 8 so the kernel streams 8 tiles
-    # per grid step (_k_block); <= 7 extra zero tiles per block-row
     kmax = _ell_kmax(int(counts.max()) if counts.size else 0)
     row_start = np.zeros(nrb + 1, np.int64)
     np.cumsum(counts, out=row_start[1:])
@@ -453,7 +221,7 @@ def _build_band_arrays(m, n, rows, cols, vals, bm, bn):
     window over row blocks; sparse-within-window slots stay zero).
 
     Tries the native C++ packer first (see _build_ell_arrays)."""
-    nrb = _pad8(math.ceil(m / bm))
+    nrb = math.ceil(m / bm)
     from fos_tpu import native
 
     nat = native.band_pack(rows, cols, vals, nrb, math.ceil(n / bn), bm, bn)
@@ -480,8 +248,8 @@ def tridiag_band_layout(blocks):
     """Convert block-tridiagonal ELL slots ``[low, diag, up]`` (cols
     ``clip(i-1..i+1)``, edge tiles zeroed) to the banded layout: slots
     line up with windows ``cs_i = clip(i - 1, 0, nrb - 3)`` — the first
-    row shifts left, the last shifts right.  Shared by bench.py and
-    tools/spmv_probe.py (device-side builders)."""
+    row shifts left, the last shifts right.  Used by the device-side
+    problem builders (bench.py, chip_smoke.py)."""
     blk = blocks.at[0].set(jnp.roll(blocks[0], -1, axis=0).at[2].set(0.0))
     blk = blk.at[-1].set(jnp.roll(blocks[-1], 1, axis=0).at[0].set(0.0))
     nrb = blocks.shape[0]
@@ -498,7 +266,7 @@ def band_span_ratio(A, bm=128, bn=128) -> float:
         return 1.0
 
     def one(r, c, mm, br, bc):
-        nrb = _pad8(math.ceil(mm / br))
+        nrb = math.ceil(mm / br)
         ti = r // br
         tj = c // bc
         lo = np.full(nrb, np.iinfo(np.int64).max, np.int64)
@@ -519,11 +287,10 @@ def band_span_ratio(A, bm=128, bn=128) -> float:
 class BandedBlockOp:
     """Banded-block sparse operator: same mv/rmv/shape/todense protocol as
     :class:`BlockedEllOp`, but each row block's tiles occupy a contiguous
-    block-column window, so the SpMV kernel slices x contiguously instead
-    of gathering per-tile rows (the ELL kernel's bandwidth limiter)."""
+    block-column window, so x is read as one contiguous window per row
+    block instead of one gathered block per tile."""
 
-    def __init__(self, blocks, cs, blocks_t, cs_t, m, n,
-                 bm=128, bn=128, interpret=False):
+    def __init__(self, blocks, cs, blocks_t, cs_t, m, n, bm=128, bn=128):
         self.blocks = blocks        # (nrb, S, bm, bn)
         self.cs = cs                # (nrb,) int32 window start (block cols)
         self.blocks_t = blocks_t    # A' tiles: (ncb, S_t, bn, bm)
@@ -532,52 +299,32 @@ class BandedBlockOp:
         self.n = n
         self.bm = bm
         self.bn = bn
-        self.interpret = interpret
 
     def tree_flatten(self):
         return (self.blocks, self.cs, self.blocks_t, self.cs_t), (
-            self.m, self.n, self.bm, self.bn, self.interpret)
+            self.m, self.n, self.bm, self.bn)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
         return cls(*children, *aux)
 
     @classmethod
-    def create(cls, A, *, bm=128, bn=128, interpret=None,
-               transpose_table=True):
+    def create(cls, A, *, bm=128, bn=128, transpose_table=True):
         """``transpose_table=False`` skips packing the A' tile table:
         ``mv_pair`` (the whole HSDE solve path) computes A'z from the A
         table, so the transpose table only serves standalone ``rmv`` —
-        skipping it halves tile memory (and skips one of the two packs;
-        wall-clock pack savings are allocator-noise-dominated at 1e7
-        nnz)."""
-        if interpret is None:
-            from fos_tpu.config import is_tpu_backend
-
-            interpret = not is_tpu_backend()
+        skipping it halves tile memory (and skips one of the two packs)."""
         rows, cols, vals, m, n = _coo_parts(A)
         blocks, cs, _ = _build_band_arrays(
             m, n, rows, cols, vals.astype(np.float32), bm, bn)
-
-        def pad_s(blk):
-            # S > 8 streams in 8-tile slabs along the second grid axis
-            # (the kernels need S % st == 0); zero tiles contribute 0
-            S = blk.shape[1]
-            r = (-S) % 8 if S > 8 else 0
-            if r:
-                blk = np.concatenate(
-                    [blk, np.zeros((blk.shape[0], r) + blk.shape[2:],
-                                   blk.dtype)], axis=1)
-            return blk
-
         blocks_t = cs_t = None
         if transpose_table:
             blocks_t, cs_t, _ = _build_band_arrays(
                 n, m, cols, rows, vals.astype(np.float32), bn, bm)
-            blocks_t = jnp.asarray(pad_s(blocks_t))
+            blocks_t = jnp.asarray(blocks_t)
             cs_t = jnp.asarray(cs_t)
-        return cls(jnp.asarray(pad_s(blocks)), jnp.asarray(cs),
-                   blocks_t, cs_t, m, n, bm, bn, interpret)
+        return cls(jnp.asarray(blocks), jnp.asarray(cs),
+                   blocks_t, cs_t, m, n, bm, bn)
 
     @property
     def shape(self):
@@ -589,12 +336,12 @@ class BandedBlockOp:
 
     def _ncb(self) -> int:
         """Column-block count: the A' table's row count when stored, else
-        the SAME _pad8 formula the table builder uses — both storage modes
-        must compile identical x/y2 block shapes and report identical
+        the same formula the table builder uses — both storage modes must
+        compile identical x/y2 block shapes and report identical
         occupancy for the same matrix."""
         if self.blocks_t is not None:
             return self.blocks_t.shape[0]
-        return _pad8(math.ceil(self.n / self.bn))
+        return math.ceil(self.n / self.bn)
 
     def occupancy(self) -> float:
         nrb, S = self.blocks.shape[:2]
@@ -602,7 +349,7 @@ class BandedBlockOp:
 
     def _pad_x(self, x, nblocks, width, S):
         # pad to nblocks*width, then S extra zero blocks so the trailing
-        # window slice [cs, cs + S) never leaves the array
+        # window [cs, cs + S) never leaves the array
         pad = nblocks * width - x.shape[0] + S * width
         xb = jnp.pad(x, (0, pad)) if pad else x
         return xb.reshape(nblocks + S, width)
@@ -628,26 +375,20 @@ class BandedBlockOp:
         return self.cs_t, self.blocks_t, self._pad_x(y, nrb, self.bm, S_t)
 
     def mv(self, x):
-        idx, blocks, xb = self._mv_args(x)
-        y = _band_mv(idx, blocks, xb, interpret=self.interpret)
+        y = _band_mv(*self._mv_args(x))
         return y.reshape(-1)[: self.m]
 
     def rmv(self, y):
-        idx, blocks, yb = self._rmv_args(y)
-        z = _band_mv(idx, blocks, yb, interpret=self.interpret)
+        z = _band_mv(*self._rmv_args(y))
         return z.reshape(-1)[: self.n]
 
     def mv_pair(self, x, z):
-        """(A @ x, A' @ z) from ONE stream of the A tile table — half the
-        HBM traffic of mv + rmv (the A' table isn't touched).  This is the
-        shape hsde_ops.q_mul consumes; measured on TPU v5e it takes the
-        1e7-nnz LP from 2.36k to ~4k iters/s."""
-        nrb, S = self.blocks.shape[:2]
+        """(A @ x, A' @ z) from the A tile table alone (the A' table isn't
+        touched) — the shape hsde_ops.q_mul consumes."""
+        nrb = self.blocks.shape[0]
         pad = nrb * self.bm - z.shape[0]
         zb = (jnp.pad(z, (0, pad)) if pad else z).reshape(nrb, self.bm)
-        xb = self._pad_x(x, self._ncb(), self.bn, S)
-        y1, y2 = _band_mv_pair(self.cs, self.blocks, xb, zb,
-                               interpret=self.interpret)
+        y1, y2 = _band_mv_pair(*self._mv_args(x), zb)
         return y1.reshape(-1)[: self.m], y2.reshape(-1)[: self.n]
 
     def todense(self):
@@ -668,7 +409,7 @@ class BandedBlockOp:
     def astype(self, dtype):
         if jnp.dtype(dtype) == jnp.float32:
             return self
-        raise TypeError("BandedBlockOp is f32-only (TPU kernel dtype)")
+        raise TypeError("BandedBlockOp is f32-only (tile table dtype)")
 
 
 @jax.tree_util.register_pytree_node_class
@@ -676,8 +417,7 @@ class BlockedEllOp:
     """Duck-typed sparse drop-in for A in :mod:`fos_tpu.linalg.hsde_ops`
     (``mv``/``rmv``/``shape``/``todense`` protocol)."""
 
-    def __init__(self, blocks, cols, blocks_t, cols_t, m, n,
-                 bm=128, bn=128, interpret=False):
+    def __init__(self, blocks, cols, blocks_t, cols_t, m, n, bm=128, bn=128):
         self.blocks = blocks        # (nrb, kmax, bm, bn)
         self.cols = cols            # (nrb, kmax) int32
         self.blocks_t = blocks_t    # A' tiles: (ncb, kmax_t, bn, bm)
@@ -686,11 +426,10 @@ class BlockedEllOp:
         self.n = n
         self.bm = bm
         self.bn = bn
-        self.interpret = interpret
 
     def tree_flatten(self):
         return (self.blocks, self.cols, self.blocks_t, self.cols_t), (
-            self.m, self.n, self.bm, self.bn, self.interpret)
+            self.m, self.n, self.bm, self.bn)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
@@ -698,18 +437,12 @@ class BlockedEllOp:
 
     # ------------------------------------------------------------------
     @classmethod
-    def create(cls, A, *, bm=128, bn=128, interpret=None,
-               transpose_table=True):
+    def create(cls, A, *, bm=128, bn=128, transpose_table=True):
         """Build from a scipy.sparse matrix or a jax BCOO.
 
         ``transpose_table=False`` skips packing the A' tile table (see
         BandedBlockOp.create): ``mv_pair`` serves A'z from the A table;
         only standalone ``rmv`` needs the transpose table."""
-        if interpret is None:
-            # Mosaic compiles only on TPU: interpret everywhere else
-            from fos_tpu.config import is_tpu_backend
-
-            interpret = not is_tpu_backend()
         rows, cols, vals, m, n = _coo_parts(A)
         blocks, cols_tab, _ = _build_ell_arrays(
             m, n, rows, cols, vals.astype(np.float32), bm, bn)
@@ -720,7 +453,7 @@ class BlockedEllOp:
             blocks_t = jnp.asarray(blocks_t)
             cols_t_tab = jnp.asarray(cols_t_tab)
         return cls(jnp.asarray(blocks), jnp.asarray(cols_tab),
-                   blocks_t, cols_t_tab, m, n, bm, bn, interpret)
+                   blocks_t, cols_t_tab, m, n, bm, bn)
 
     @property
     def shape(self):
@@ -731,15 +464,15 @@ class BlockedEllOp:
         return self.blocks.dtype
 
     def _ncb(self) -> int:
-        # same _pad8 formula as the builder: both storage modes must agree
+        # same formula as the builder: both storage modes must agree
         # (see BandedBlockOp._ncb)
         if self.blocks_t is not None:
             return self.blocks_t.shape[0]
-        return _pad8(math.ceil(self.n / self.bn))
+        return math.ceil(self.n / self.bn)
 
     def occupancy(self) -> float:
-        """Stored-tile fraction of the dense tile grid (storage and HBM
-        traffic relative to a dense matvec; padding slots included)."""
+        """Stored-tile fraction of the dense tile grid (storage and bytes
+        read relative to a dense matvec; padding slots included)."""
         nrb, kmax = self.cols.shape
         return (nrb * kmax) / float(nrb * self._ncb())
 
@@ -768,22 +501,19 @@ class BlockedEllOp:
         return self.cols_t, self.blocks_t, self._pad(y, nrb, self.bm)
 
     def mv(self, x):
-        idx, blocks, xb = self._mv_args(x)
-        y = _bell_mv(idx, blocks, xb, interpret=self.interpret)
+        y = _bell_mv(*self._mv_args(x))
         return y.reshape(-1)[: self.m]
 
     def rmv(self, y):
-        idx, blocks, yb = self._rmv_args(y)
-        z = _bell_mv(idx, blocks, yb, interpret=self.interpret)
+        z = _bell_mv(*self._rmv_args(y))
         return z.reshape(-1)[: self.n]
 
     def mv_pair(self, x, z):
-        """(A @ x, A' @ z) from ONE stream of the A tile table — half the
-        HBM traffic of mv + rmv (see BandedBlockOp.mv_pair)."""
+        """(A @ x, A' @ z) from the A tile table alone (see
+        BandedBlockOp.mv_pair)."""
         nrb = self.blocks.shape[0]
-        idx, blocks, xb = self._mv_args(x)
         zb = self._pad(z, nrb, self.bm)
-        y1, y2 = _bell_mv_pair(idx, blocks, xb, zb, interpret=self.interpret)
+        y1, y2 = _bell_mv_pair(*self._mv_args(x), zb)
         return y1.reshape(-1)[: self.m], y2.reshape(-1)[: self.n]
 
     def todense(self):
@@ -805,16 +535,16 @@ class BlockedEllOp:
     def astype(self, dtype):
         if jnp.dtype(dtype) == jnp.float32:
             return self
-        raise TypeError("BlockedEllOp is f32-only (TPU kernel dtype)")
+        raise TypeError("BlockedEllOp is f32-only (tile table dtype)")
 
 
 def bell_storage_ratio(A, bm=128, bn=128) -> float:
-    """Padded blocked-ELL storage (both A and A' layouts) relative to one
-    dense copy — the build layer's profitability estimate.  Computed from
-    the index pattern only (no tile data materialized)."""
+    """Blocked-ELL storage (both A and A' layouts) relative to one dense
+    copy — the build layer's profitability estimate.  Computed from the
+    index pattern only (no tile data materialized)."""
     rows, cols, _, m, n = _coo_parts(A)
-    nrb = _pad8(math.ceil(m / bm))
-    ncb = _pad8(math.ceil(n / bn))
+    nrb = math.ceil(m / bm)
+    ncb = math.ceil(n / bn)
     ti = rows // bm
     tj = cols // bn
     pair = ti.astype(np.int64) * ncb + tj
@@ -826,23 +556,23 @@ def bell_storage_ratio(A, bm=128, bn=128) -> float:
 
 @jax.tree_util.register_pytree_node_class
 class RowShardedOp:
-    """Multi-chip wrapper for a :class:`BandedBlockOp` / :class:`BlockedEllOp`:
+    """Multi-device wrapper for a :class:`BandedBlockOp` / :class:`BlockedEllOp`:
     tile arrays (the big data) are sharded by block-row over a mesh axis,
-    ``mv``/``rmv`` run the LOCAL Pallas kernel per device under
+    ``mv``/``rmv`` run the LOCAL tile product per device under
     ``shard_map`` and all-gather the (small, O(m)+O(n)) result vectors.
     x/y stay replicated — the communication pattern of SURVEY.md §5 with
-    the matvec itself kept out of GSPMD's hands (a ``pallas_call`` is
-    opaque to the partitioner; ``shard_map`` makes the split explicit).
+    the matvec itself kept out of GSPMD's hands (``shard_map`` makes the
+    split explicit, and a Pallas kernel is opaque to the partitioner).
 
     Both the A and A' tile tables are sharded along their OWN row axes, so
     neither direction needs a reduction — one tiled all-gather each.
 
     ``axis`` may be a single mesh-axis name or a TUPLE of names for
-    hierarchical multi-host meshes (e.g. ``("dcn", "ici")``): block rows
-    are split over the axis product (outer axis major, matching
-    ``PartitionSpec`` order) and the result all-gather runs over the same
-    product group — XLA decomposes it into the per-network phases, so the
-    big tile tables never move and only the O(m)+O(n) vectors cross DCN.
+    hierarchical meshes (e.g. ``("host", "local")``): block rows are split
+    over the axis product (outer axis major, matching ``PartitionSpec``
+    order) and the result all-gather runs over the same product group —
+    XLA decomposes it into the per-axis phases, so the big tile tables
+    never move and only the O(m)+O(n) vectors cross hosts.
     """
 
     def __init__(self, inner, mesh, axis="model"):
@@ -907,19 +637,17 @@ class RowShardedOp:
         from jax import shard_map
         from jax.sharding import PartitionSpec as P
 
-        interpret = self.inner.interpret
         kernel = type(self.inner)._kernel
-
         axes = self.axis
 
         def local(idx_l, blocks_l, xb_l):
-            y = kernel(idx_l, blocks_l, xb_l, interpret=interpret)
+            y = kernel(idx_l, blocks_l, xb_l)
             # multi-axis: MUST gather the INNER (minor) axis first — shard
-            # order over P(("dcn","ici")) is outer-major (device (d,i)
-            # holds shard d*n_ici + i), and only inner-first gathering
+            # order over P(("host","local")) is outer-major (device (h,l)
+            # holds shard h*n_local + l), and only inner-first gathering
             # reassembles that order (outer-first would interleave:
             # [s0,s4,s1,s5,...] on a 2x4 mesh).  A bonus, not the reason:
-            # the later DCN phase then moves one contiguous per-host block.
+            # the later cross-host phase then moves one contiguous block.
             for a in reversed(axes):
                 y = jax.lax.all_gather(y, a, axis=0, tiled=True)
             return y
@@ -943,12 +671,11 @@ class RowShardedOp:
         return z.reshape(-1)[: self.inner.n]
 
     def mv_pair(self, x, z):
-        """Fused (A @ x, A' @ z) from ONE stream of the sharded A table:
-        each device runs the local fused-pair kernel on its block rows,
-        then y1 = tiled all-gather over the row axis (as mv) and y2 = psum
-        of the per-device partial A'z (a device's rows contribute only to
-        its own column windows, zero elsewhere).  Halves per-device HBM
-        tile traffic exactly like the local mv_pair."""
+        """(A @ x, A' @ z) from the sharded A table alone: each device
+        runs the local pair on its block rows, then y1 = tiled all-gather
+        over the row axis (as mv) and y2 = psum of the per-device partial
+        A'z (a device's rows contribute only to its own column windows,
+        zero elsewhere)."""
         from jax import shard_map
         from jax.sharding import PartitionSpec as P
 
@@ -958,12 +685,11 @@ class RowShardedOp:
         bm = blocks.shape[-2]
         pad = nrb * bm - z.shape[0]
         zb = (jnp.pad(z, (0, pad)) if pad else z).reshape(nrb, bm)
-        interpret = inner.interpret
         kernel = type(inner)._pair_kernel
         axes = self.axis
 
         def local(idx_l, blocks_l, xb_l, zb_l):
-            y1, y2 = kernel(idx_l, blocks_l, xb_l, zb_l, interpret=interpret)
+            y1, y2 = kernel(idx_l, blocks_l, xb_l, zb_l)
             for a in reversed(axes):  # inner-first (see _sharded_kernel)
                 y1 = jax.lax.all_gather(y1, a, axis=0, tiled=True)
             y2 = jax.lax.psum(y2, axes)
@@ -984,7 +710,7 @@ class RowShardedOp:
     def astype(self, dtype):
         if jnp.dtype(dtype) == jnp.float32:
             return self
-        raise TypeError("RowShardedOp is f32-only (TPU kernel dtype)")
+        raise TypeError("RowShardedOp is f32-only (tile table dtype)")
 
 
 def _coo_parts(A):

@@ -2,8 +2,8 @@
 
 The compute path of fos_tpu is jax/XLA/Pallas; this package holds the
 *host-side* native tier — currently the sparse tile packer
-(:mod:`packer.cpp`) that turns COO triplets into the MXU-shaped tile
-tables consumed by the Pallas SpMV kernels.  The shared library is
+(:mod:`packer.cpp`) that turns COO triplets into the 128x128 tile tables
+consumed by the tile operators.  The shared library is
 compiled on first use with ``g++`` and cached next to the source, keyed
 on a hash of the source text so edits rebuild automatically.  Every
 entry point degrades gracefully: if the toolchain is missing or the

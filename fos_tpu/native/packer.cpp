@@ -4,7 +4,7 @@
 // Role: the data-loader tier of the framework.  The reference keeps sparse
 // assembly inside Julia's SparseMatrixCSC machinery (reference
 // src/problemforms/HSDE/HSDEAffine.jl:41-59 consumes an already-built CSC);
-// here the packing from COO triplets into MXU-shaped (bm, bn) tile tables is
+// here the packing from COO triplets into dense (bm, bn) tile tables is
 // the one host-side O(nnz) pass in the solve pipeline, and the numpy
 // implementation (np.unique + np.add.at over 4-d indices) costs ~0.5 us per
 // nonzero — minutes of setup at production 1e8-nnz scale.  This C++ pass is

@@ -1,13 +1,13 @@
 """Device-mesh sharding for large problems and instance batches.
 
 The reference has no distribution story at all (SURVEY.md §2c); the
-TPU-native scale-out follows the GSPMD recipe: build a
+scale-out follows the GSPMD recipe: build a
 ``jax.sharding.Mesh``, annotate the data layout with ``NamedSharding``, jit
 the *same* solver code, and let XLA insert the collectives.  The only
 communication points are the ones identified in SURVEY.md §5: the two dot
 products per CG iteration, the matvec reductions when A is sharded, and the
 residual norms in the convergence check — all become ``psum``-style
-collectives over ICI automatically.
+collectives that XLA inserts (NCCL on the GPU).
 
 Two axes:
 
@@ -37,14 +37,15 @@ def make_mesh(shape: Sequence[int] = None, names: Sequence[str] = ("batch", "mod
 
 def make_hybrid_mesh(outer: int, inner: int,
                      names: Sequence[str] = ("batch", "model")) -> Mesh:
-    """Hierarchical mesh for multi-host topologies: the ``outer`` axis is
-    meant to ride DCN (one group per host/slice — put the data-parallel
-    batch axis there, it only communicates at termination voting), the
-    ``inner`` axis to ride ICI (model/row sharding — it carries the psum
-    per CG dot).  On a real multi-host runtime the assignment uses
-    ``mesh_utils.create_hybrid_device_mesh`` so inner-axis neighbours share
-    a host; on one host (or the virtual CPU mesh) it reduces to a reshape,
-    which keeps the layout semantics testable anywhere.
+    """Hierarchical mesh for multi-host runs: the ``outer`` axis is the
+    cross-host axis (one group per host — put the data-parallel batch axis
+    there, it only communicates at termination voting), the ``inner`` axis
+    the in-host axis (model/row sharding — it carries the psum per CG dot
+    over the host's fast card-to-card links).  On a real multi-host runtime
+    the assignment uses ``mesh_utils.create_hybrid_device_mesh`` so
+    inner-axis neighbours share a host; on one host (or the virtual CPU
+    mesh) it reduces to a reshape, which keeps the layout semantics
+    testable anywhere.
     """
     devices = jax.devices()
     if outer * inner != len(devices):
@@ -54,7 +55,7 @@ def make_hybrid_mesh(outer: int, inner: int,
 
         mesh_devices = mesh_utils.create_hybrid_device_mesh(
             (inner,), (outer,), devices=devices)
-        # hybrid util returns (dcn, ici)-ordered axes already
+        # hybrid util returns (cross-host, in-host)-ordered axes already
         return Mesh(mesh_devices.reshape(outer, inner), names)
     return Mesh(np.asarray(devices).reshape(outer, inner), names)
 
@@ -87,7 +88,7 @@ def _rebuild_row_sharded(form, put_A, put_b, put_c, put_rest):
             " for sparse data either shard the raw matrix with "
             "shard_problem_2d before building the form, or wrap a "
             "BlockedEllOp/BandedBlockOp in parallel.RowShardedOp (tile "
-            "tables sharded, local Pallas kernels under shard_map)")
+            "tables sharded, local tile products under shard_map)")
     ch, aux = s1.tree_flatten()          # (A, b, c, fac, ...)
     A, b, c, fac = ch[0], ch[1], ch[2], ch[3]
     s1n = type(s1).tree_unflatten(
@@ -131,10 +132,11 @@ def shard_problem_rows(form, mesh: Mesh, axis: str = "model"):
 def shard_batched_form_rows(form, mesh: Mesh, batch_axis: str = "batch",
                             model_axis: str = "model"):
     """Combined data x model parallelism for a batched HSDEForm: instances
-    split over ``batch_axis`` (DCN-friendly: no per-iteration traffic) AND
-    each instance's A row-sharded over ``model_axis`` (ICI: psum per CG
-    dot).  This is the two-level layout for a pod — e.g. a (hosts, 4) mesh
-    from :func:`make_hybrid_mesh`.
+    split over ``batch_axis`` (no per-iteration traffic, so it may cross
+    hosts) AND each instance's A row-sharded over ``model_axis`` (a psum
+    per CG dot, so keep it inside a host).  This is the two-level layout
+    for several hosts — e.g. a (hosts, 4) mesh from
+    :func:`make_hybrid_mesh`.
 
     Layouts (keyed on the form's named fields, batched leaves carry a
     leading instance axis): A (B,m,n): P(batch, model, None); b / dinv
@@ -165,7 +167,7 @@ def shard_problem_2d(A, b, c, mesh: Mesh, axes=("model_r", "model_c")):
     ``A: P(r, c)``, ``b: P(r)``, ``c: P(c)``; everything derived inside
     ``HSDEForm.build`` (norms, projector state) and the solver iterate then
     inherit layouts from GSPMD propagation — the CG matvec becomes local
-    GEMM blocks + an all-reduce over the contracted axis on ICI, exactly
+    GEMM blocks + an all-reduce over the contracted axis, exactly
     the communication points of SURVEY.md §5.
 
     Returns device_put (A, b, c); pass them to ``conic_problem`` /

@@ -3,7 +3,7 @@
 ``min c'x  s.t.  Ax + s = b, s in K1, x in K2`` — the MathProgBase conic
 form the reference loads in ``loadproblem!``
 (/root/reference/src/FOSSolverInterface.jl:31-64).  ``K1``/``K2`` are static
-:class:`ConeSpec` metadata; ``A`` may be dense (MXU path) or BCOO sparse.
+:class:`ConeSpec` metadata; ``A`` may be dense or BCOO sparse.
 """
 
 from __future__ import annotations

@@ -88,7 +88,7 @@ class HSDEForm:
     # ------------------------------------------------------------------
     @classmethod
     def build(cls, problem: ConicProblem, *, direct: bool = False,
-              cg_max_iters: int = 1000, pallas: bool = False,
+              cg_max_iters: int = 1000,
               cg_tol_floor: float = None, psd_method: str = "auto",
               cg_variant: str = "standard", cg_unroll: int = 2,
               equilibrate: bool = False, equilibrate_iters: int = 10,
@@ -97,25 +97,41 @@ class HSDEForm:
         A = problem.A
         b = problem.b
         c = problem.c
-        # Sparse policy: BCOO matvec lowers to gather/scatter on TPU and is
-        # >10x slower than the densified matvec even at 5% density
-        # (measured); auto-densify on accelerators when the dense form fits
-        # comfortably in HBM.  Pass densify=False to keep A sparse, and see
-        # sparse_format below for the Pallas blocked-ELL fast path.
-        if (densify and hasattr(A, "todense")
-                and not hasattr(A, "mv")               # operator types
-                and sparse_format not in ("bell", "band")):  # explicit layout
-            # operator inputs (BlockedEllOp/BandedBlockOp/RowShardedOp) and
-            # explicit tile-format requests are deliberate layouts: the
-            # auto-densify gate must not silently discard them
-            import jax as _jax
+        # Sparse policy, decided once from the pattern: an f32 A whose
+        # occupied 128x128 tiles are under half the dense tile grid is
+        # packed into a tile operator (linalg/sparse_ell.py) — banded
+        # layout where each row block's tiles are (near-)contiguous, else
+        # blocked-ELL; "bell"/"band" force it, "bcoo" (or densify=True)
+        # skips it.  Any other sparse A is densified when the dense copy
+        # fits a quarter of device memory (densify="auto"; never on the
+        # CPU), else kept as BCOO.  Operator inputs (BlockedEllOp/
+        # BandedBlockOp/RowShardedOp) are deliberate layouts and pass
+        # through.  The numbers behind this order: PERF.md, "Sparse
+        # formats".
+        tile = None
+        if hasattr(A, "indices") and sparse_format in ("auto", "bell", "band"):
+            from fos_tpu.linalg.sparse_ell import (band_span_ratio,
+                                                   bell_storage_ratio)
+
+            if jnp.dtype(b.dtype) != jnp.float32:
+                if sparse_format != "auto":
+                    raise ValueError(
+                        f"sparse_format={sparse_format!r} requires f32 "
+                        "problem data (the tile tables are f32-only); cast "
+                        "with dtype=jnp.float32 or use sparse_format='bcoo'")
+            elif sparse_format == "band":
+                tile = "band"
+            elif sparse_format == "bell" or (densify is not True
+                                             and bell_storage_ratio(A) < 0.5):
+                tile = "band" if band_span_ratio(A) <= 1.25 else "bell"
+        if (densify and tile is None and hasattr(A, "todense")
+                and not hasattr(A, "mv")):
+            from fos_tpu.config import densify_fits, device_bytes_limit
 
             dense_bytes = A.shape[0] * A.shape[1] * jnp.dtype(b.dtype).itemsize
             if densify is True or (
-                densify == "auto"
-                and _jax.default_backend() != "cpu"
-                and dense_bytes < 4 * 1024**3
-            ):
+                    densify == "auto"
+                    and densify_fits(dense_bytes, device_bytes_limit())):
                 A = A.todense()
         norm_b = jnp.linalg.norm(b)
         norm_c = jnp.linalg.norm(c)
@@ -155,59 +171,15 @@ class HSDEForm:
             import dataclasses as _dc
 
             problem = _dc.replace(problem, A=A, b=b, c=c)
-        # Sparse fast path: pack a still-sparse A into MXU-native 128x128
-        # tiles with a Pallas ELL SpMV (linalg/sparse_ell.py) when the tile
-        # occupancy makes it profitable ("auto": stored tiles < 50% of the
-        # dense grid); "bell" forces it, "bcoo" keeps gather-based BCOO.
-        if hasattr(A, "indices") and sparse_format in ("auto", "bell", "band"):
-            if jnp.dtype(b.dtype) == jnp.float32:  # the kernels are f32
-                import jax as _jax
+        if tile is not None:
+            from fos_tpu.linalg.sparse_ell import BandedBlockOp, BlockedEllOp
 
-                from fos_tpu.config import is_tpu_backend
-                from fos_tpu.linalg.sparse_ell import (BandedBlockOp,
-                                                       BlockedEllOp,
-                                                       band_span_ratio,
-                                                       bell_storage_ratio)
-
-                # transpose_table=False: the whole HSDE path (q_mul,
-                # hsde_normal_mul, the residual check) consumes the fused
-                # (A@x, A'@z) pair kernels, which stream A'z from the A
-                # table — skipping the A' pack halves tile memory
-                # (standalone op.rmv raises a pointer to the flag)
-                if sparse_format == "band":
-                    # contiguous-window layout (one x slice per row block
-                    # instead of the ELL per-tile gather)
-                    A = BandedBlockOp.create(A, transpose_table=False)
-                # auto picks the tile path only where Mosaic compiles
-                # (TPU) or interprets for tests (CPU); other backends
-                # (XLA:GPU) keep BCOO unless forced
-                elif sparse_format == "bell" or (
-                        (is_tpu_backend() or _jax.default_backend() == "cpu")
-                        and bell_storage_ratio(A) < 0.5):
-                    if band_span_ratio(A) <= 1.25:
-                        # banded layout wins wherever the column windows
-                        # are (near-)contiguous: validated + measured on
-                        # real TPU v5e hardware round 4 — band streams
-                        # 817 GB/s vs ELL's 661 at a 48 MiB table
-                        # (tools/launch_probe.py, RTT-cancelled timing),
-                        # and both are bit-equal to the scipy oracle
-                        A = BandedBlockOp.create(A, transpose_table=False)
-                    else:
-                        A = BlockedEllOp.create(A, transpose_table=False)
-            elif sparse_format in ("bell", "band"):
-                raise ValueError(
-                    f"sparse_format={sparse_format!r} requires f32 problem "
-                    "data (the Pallas tile kernels are f32-only); cast with "
-                    "dtype=jnp.float32 or use sparse_format='bcoo'")
-        # NOTE on pallas: measured on TPU v5e, XLA already fuses the
-        # (A@z1, A'@z2) pair of the Q matvec into a single HBM pass at the
-        # practical bandwidth ceiling (pair ~= single matvec cost), so the
-        # custom fused kernel is opt-in rather than the default.
-        if pallas:
-            from fos_tpu.linalg.pallas_kernels import PaddedDenseOp
-
-            if not isinstance(A, PaddedDenseOp):
-                A = PaddedDenseOp.create(A)
+            # transpose_table=False: the whole HSDE path (q_mul,
+            # hsde_normal_mul, the residual check) consumes mv_pair, which
+            # computes A'z from the A table — skipping the A' pack halves
+            # tile memory (standalone op.rmv raises a pointer to the flag)
+            op_cls = BandedBlockOp if tile == "band" else BlockedEllOp
+            A = op_cls.create(A, transpose_table=False)
         # Compensated (float-float) reductions (linalg/compensated.py):
         # - convergence CHECK: auto-on for f32 data — runs once per checki,
         #   negligible cost, and makes the reported residuals / the
@@ -281,8 +253,8 @@ class HSDEForm:
         x, y, tau, r, s, kappa = self.split(z)
         A, b, c = self.A, self.b, self.c
         nb, nc = self.norm_b, self.norm_c
-        # one fused tile-table stream where A supports it (sparse pair
-        # kernels / PaddedDenseOp); identical to separate mv/rmv otherwise
+        # one tile-table pass where A supports it (sparse tile ops);
+        # identical to separate mv/rmv otherwise
         Ax, ATy = hsde_ops.mv_pair(A, x, y)
         # With equilibration the residual vectors are unscaled back to the
         # ORIGINAL problem (D^{-1}, E^{-1} weights); norms nb/nc are original.

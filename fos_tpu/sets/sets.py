@@ -30,7 +30,7 @@ class AffineSet(_StatelessSet):
     """{x : Ax = b} — replaces ProximalOperators ``IndAffine``.
 
     direct mode caches ``P = A'(AA')^{-1}`` so each projection is
-    ``y = x - P(Ax - b)`` (two GEMVs on the MXU); indirect mode solves
+    ``y = x - P(Ax - b)`` (two GEMVs); indirect mode solves
     ``(AA') mu = Ax - b`` by warm-started CG.
     """
 
@@ -63,7 +63,7 @@ class AffineSet(_StatelessSet):
             # Cholesky/inverse of AA' squares it (measured: 9e-4 error at
             # cond(A) = 1e7 vs 1e-9 via QR, test_linalg.py).
             # P = Q R^{-T} of QR(A'); host f64 LAPACK when concrete
-            # (device QR on TPU is ~40x slower, see linalg/affine.py)
+            # (see linalg/affine.py)
             from fos_tpu.linalg.affine import _ls_projection_fac
 
             Ad = A.todense() if hasattr(A, "todense") else A
@@ -81,8 +81,8 @@ class AffineSet(_StatelessSet):
             # CG solve per row; warm-start state is shared read-only.
             y, _ = jax.vmap(lambda xi: self.project(xi, state))(x)
             return y, state
-        # every matvec at full f32: the bf16 MXU default displaces fixed
-        # points (r4) — including the RESIDUAL, not just the projection map
+        # every matvec at full f32 (no TF32): a reduced precision displaces
+        # fixed points — including the RESIDUAL, not just the projection map
         from fos_tpu.linalg.hsde_ops import PREC as _hi
 
         resid = (jnp.matmul(x, self.A.T, precision=_hi) - self.b
@@ -169,8 +169,8 @@ class Halfspace(_StatelessSet):
     def project(self, x, state):
         from fos_tpu.linalg.hsde_ops import PREC as _hi
 
-        # full-f32 contraction (bf16 MXU default distorts the violation
-        # estimate for batched x on TPU)
+        # full-f32 contraction (a reduced precision distorts the violation
+        # estimate for batched x)
         viol = ((jnp.matmul(x, self.a, precision=_hi) - self.beta)
                 / jnp.vdot(self.a, self.a, precision=_hi))
         viol = jnp.maximum(viol, 0.0)

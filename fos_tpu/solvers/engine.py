@@ -4,7 +4,7 @@ Reference counterpart: ``solve!``/``iterate`` (src/solverwrapper.jl:2-41) —
 option defaults, the hot loop, status-gated early exit, the final
 ``getsol`` and a forced convergence check if the loop exited unchecked.
 
-TPU-native shape: the inner ``checki`` iterations run as one jitted
+Device-resident shape: the inner ``checki`` iterations run as one jitted
 ``lax.fori_loop`` chunk ending in an on-device residual check — no host
 synchronization between convergence checks (SURVEY.md §7 "check-interval
 control flow").  The Python-level chunk loop provides the observability
@@ -36,7 +36,7 @@ EXTRA_OPTIONS = frozenset({"check_finite", "profile_dir", "unroll"})
 # Options consumed by the form/solve layer before reaching run(); accepted
 # here so algorithm-stored options (alg.options) can carry them through.
 FORM_OPTIONS = frozenset({
-    "cg_max_iters", "cg_tol_floor", "cg_variant", "cg_unroll", "pallas",
+    "cg_max_iters", "cg_tol_floor", "cg_variant", "cg_unroll",
     "psd_method",
     "equilibrate", "equilibrate_iters", "strict_certificates", "densify",
     "refine", "refine_kwargs", "compensated", "sparse_format",
@@ -302,8 +302,8 @@ def run(form, alg, *, initx=None, init_duration: float = 0.0,
     debug = int(opts["debug"])
     check_finite = bool(opts.get("check_finite", False))
     profile_dir = opts.get("profile_dir", None)
-    # iterations per compiled loop step: amortizes the ~13 us fixed
-    # device-loop cost on TPU (PERF.md); 1 = reference-equivalent default
+    # iterations per compiled loop step: amortizes the fixed device-loop
+    # cost per step; 1 = reference-equivalent default
     unroll = int(opts.get("unroll", 1))
 
     if resume_state is not None:

@@ -5,7 +5,7 @@ saveplanes.jl.  Wrappers are step-function combinators: they hold an inner
 algorithm config and delegate, adding interval-gated extra work.  Both are
 ordinary :class:`Algorithm` configs, so they compose with the same engine.
 
-TPU-native reshaping:
+Reshaped for the device:
 
 * the line-search candidate sweep (31 sequential prox evaluations with
   println debugging in the reference, linesearch.jl:54-70) becomes ONE
@@ -26,8 +26,8 @@ import jax
 import jax.numpy as jnp
 
 # full-f32 contractions: the plane-QP Gram and Anderson Gram contract over
-# length-l iterates; TPU MXU default is bf16 inputs (~1e-2 relative), which
-# distorts tiny Gram systems built from near-parallel vectors.  These
+# length-l iterates; a reduced input precision (TF32 on the GPU, ~1e-3
+# relative) distorts tiny Gram systems built from near-parallel vectors.  These
 # matmuls are O(r*l) / O(k*l) with r,k <= ~20 — HIGHEST is free here.
 # One source of truth for the pinned precision: hsde_ops.PREC.
 from fos_tpu.linalg.hsde_ops import PREC as _hi
@@ -257,7 +257,7 @@ class AndersonWrapper(Algorithm):
         # Scale the Gram to unit trace (alpha is invariant to scalar
         # scaling) and regularize relative to dtype precision: in f32 the
         # raw Gram of near-parallel residuals is numerically singular and
-        # un-regularized AA diverges (measured on TPU).
+        # un-regularized AA diverges.
         M = jnp.matmul(Fb, Fb.T, precision=_hi)
         tr = jnp.maximum(jnp.trace(M), jnp.asarray(1e-30, st.x.dtype))
         M = M / tr

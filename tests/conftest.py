@@ -3,6 +3,10 @@
 Tests run on CPU with 8 virtual devices (for sharding tests) and x64 enabled,
 per the multi-chip test strategy in SURVEY.md §4: sharded paths must agree
 with the single-chip path on a `xla_force_host_platform_device_count` mesh.
+
+Tests marked ``gpu`` need an NVIDIA GPU and skip elsewhere; on a machine
+with one, run them with ``FOS_TEST_PLATFORMS=cuda python -m pytest -m gpu
+tests/``.
 """
 
 import os
@@ -16,7 +20,7 @@ os.environ.setdefault("FOS_TPU_X64", "1")
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_platforms", os.environ.get("FOS_TEST_PLATFORMS", "cpu"))
 jax.config.update("jax_enable_x64", True)
 
 import numpy as np
@@ -28,18 +32,24 @@ def rng():
     return np.random.default_rng(0)
 
 
+@pytest.fixture
+def gpu():
+    """Skip unless the default device is a GPU (see the module docstring)."""
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs an NVIDIA GPU: FOS_TEST_PLATFORMS=cuda "
+                    "python -m pytest -m gpu tests/ on a machine with one")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _clear_jax_caches_per_module():
     """Bound accumulated XLA CPU compile state across the full suite.
 
-    With the whole suite in one process, the ~165 tests' compiled
-    executables accumulate until one of the late LARGE compilations
-    (interpret-mode Pallas inside a 20k-iteration fused solve,
-    test_sparse.py::test_gap_stall_auto_recovery) segfaults inside
-    backend_compile — reproducibly at that test in full-suite runs, never
-    in isolation or in sub-suites.  Dropping compiled programs between
-    modules keeps the live-executable footprint flat; per-module tests
-    still share compilations.
+    With the whole suite in one process, the compiled executables
+    accumulate until one of the late LARGE compilations segfaulted inside
+    backend_compile (seen in full-suite runs, never in isolation or in
+    sub-suites).  Dropping compiled programs between modules keeps the
+    live-executable footprint flat; per-module tests still share
+    compilations.
     """
     yield
     jax.clear_caches()

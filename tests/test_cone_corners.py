@@ -7,7 +7,7 @@ bracket misses, so the corners get their own sweep: alpha -> {1e-6, 1-1e-6},
 apex points, exact boundary rays (and +-1e-9 straddles), exp-dual edge rays
 (u = 0), and extreme magnitudes 1e-8..1e8 — each verified against the full
 projection KKT system with scale-aware tolerances, plus idempotency and the
-Moreau decomposition, in f64 AND in f32 (the production TPU dtype).
+Moreau decomposition, in f64 AND in f32 (the f32 path's dtype).
 
 Reference semantics: IndExpPrimal/IndExpDual/proxDual
 (/root/reference/src/cones.jl:12-13,80-85); POW is the beyond-reference SCS
@@ -166,6 +166,27 @@ def test_exp_boundary_rays():
                     assert np.abs(p - v).max() <= 1e-9 * scale
 
 
+@pytest.mark.parametrize("v", [
+    (0.010519555162081435, -0.7869400022762568, 0.24150850104796293),
+    (1e-3, -1.0, 0.5), (1e-6, -2.0, 1.0), (0.05, -0.3, -0.2)])
+def test_exp_tiny_positive_r_negative_s(v):
+    """r -> 0+ with s < 0 puts the root at the bracket end rho = 1 - s/r,
+    where x2 = 0: the bracket search must not run away from it (it once
+    returned a point outside the cone here, and z ~ 3e53 on the GPU)."""
+    v = np.asarray(v)
+    p = np.asarray(_proj_exp(jnp.asarray(v, jnp.float64)))
+    tol = 1e-9
+    assert np.all(np.isfinite(p)), p
+    x, y, z = p
+    with np.errstate(over="ignore"):          # p in Kexp
+        assert y >= 0 and (y * np.exp(x / y) <= z + tol if y > 0
+                           else x <= tol and z >= -tol), p
+    uu, uv, uw = u = p - v                    # p - v in Kexp* (absolute)
+    assert (-uu * np.exp(uv / uu) <= np.e * uw + tol if uu < 0
+            else uu <= tol and uv >= -tol and uw >= -tol), u
+    assert abs(np.dot(u, p)) <= tol
+
+
 def test_exp_dual_edge_rays():
     """The Kexp* edge {(0, v, w): v, w >= 0} and its +-eps neighborhood —
     exactly where the reference's IndExpDual branches (cones.jl:13) and a
@@ -199,7 +220,7 @@ def test_exp_moreau_extreme_magnitudes():
 # ----------------------------------------------------------- f32 tier ----
 
 def test_pow_exp_corners_f32():
-    """Production TPU dtype: the same corners must stay finite and satisfy
+    """The f32 path's dtype: the same corners must stay finite and satisfy
     KKT at f32-appropriate tolerances (a silently-missed bracket typically
     produces O(1) errors or NaNs, far above 1e-4)."""
     for v in _sign_mag_grid():

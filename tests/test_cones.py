@@ -248,8 +248,8 @@ def test_psd_poly_matches_eigh(rng):
 def test_psd_poly_preserves_f32_under_x64(rng):
     # Regression (VERDICT r3 weak item 1): np.float64 strong scalars inside
     # psd_project_poly promoted f32 inputs to f64 under jax_enable_x64 (on
-    # by conftest here).  Emulated-f64 matmuls crash the TPU worker, so the
-    # poly path MUST be dtype-preserving end to end.
+    # by conftest here).  The poly path MUST be dtype-preserving end to
+    # end: an f32 solve must not pay for f64 matmuls.
     from fos_tpu.cones.psd_poly import psd_project_poly, _spectral_bound
 
     B = rng.standard_normal((3, 16, 16))

@@ -12,7 +12,7 @@ import scipy.sparse as sp
 
 from fos_tpu import native
 from fos_tpu.linalg import sparse_ell
-from fos_tpu.linalg.sparse_ell import (BandedBlockOp, BlockedEllOp, _pad8,
+from fos_tpu.linalg.sparse_ell import (BandedBlockOp, BlockedEllOp,
                                        _build_band_arrays, _build_ell_arrays)
 
 
@@ -51,7 +51,7 @@ def test_native_matches_numpy_ell_and_band(monkeypatch, rng):
         m, n = A.shape
         for (mm, nn, rr, cc) in ((m, n, rows, cols), (n, m, cols, rows)):
             for bm, bn in ((128, 128), (128, 256)):
-                nrb = _pad8(math.ceil(mm / bm))
+                nrb = math.ceil(mm / bm)
                 ncb = math.ceil(nn / bn)
                 nat = native.ell_pack(rr, cc, vals, nrb, ncb, bm, bn,
                                       sparse_ell._ell_kmax)
@@ -80,7 +80,7 @@ def test_ops_built_native_agree_with_scipy(rng):
     x = rng.standard_normal(700).astype(np.float32)
     y = rng.standard_normal(900).astype(np.float32)
     for cls in (BlockedEllOp, BandedBlockOp):
-        op = cls.create(A, interpret=True)
+        op = cls.create(A)
         np.testing.assert_allclose(np.asarray(op.mv(x)), A @ x, atol=2e-4)
         np.testing.assert_allclose(np.asarray(op.rmv(y)), A.T @ y, atol=2e-4)
 
@@ -106,6 +106,6 @@ def test_fallback_when_disabled(monkeypatch):
     assert native.get() is None
     A = sp.random(300, 300, density=0.02, format="csr", random_state=1,
                   dtype=np.float32)
-    op = BlockedEllOp.create(A, interpret=True)
+    op = BlockedEllOp.create(A)
     x = np.ones(300, np.float32)
     np.testing.assert_allclose(np.asarray(op.mv(x)), A @ x, atol=2e-4)

@@ -116,9 +116,9 @@ def test_solution_fields(readme):
 
 
 def test_gapa_tight_f32_with_refine(readme):
-    # The TPU-path answer to the reference's tightest contract
+    # The f32 path's answer to the reference's tightest contract
     # (testDRandGAPA.jl:44-49, eps=1e-9 -> 1e-8 rel-obj): main solve in f32
-    # with compensated reductions (the TPU compute dtype), then the f64
+    # with compensated reductions, then the f64
     # refinement sweep.  Measured: rel-obj ~ 2e-11.
     import jax.numpy as jnp
 

@@ -15,7 +15,7 @@ from fos_tpu.interface.api import solve_feasibility
 from fos_tpu.problems.feasibility import Feasibility
 from fos_tpu.sets import AffineSet, NonNeg
 
-from tests.test_solve_e2e import readme_problem
+from test_solve_e2e import readme_problem  # tests/ is on sys.path under pytest
 
 
 @pytest.fixture(scope="module")
